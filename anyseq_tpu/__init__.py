@@ -1,34 +1,25 @@
-"""anyseq_tpu -- a TPU-native pairwise sequence alignment framework.
+"""anyseq_tpu -- pairwise sequence alignment on accelerators with JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
-DasNaCl/anyseq: global (Needleman-Wunsch), semiglobal and local
-(Smith-Waterman) alignment with linear and affine gap scoring, in score-only,
-full-matrix-traceback and linear-memory (Hirschberg) modes; single-chip
-Pallas wavefront kernels, many-pair batched mode, and multi-chip
+A from-scratch JAX/XLA re-design of the capabilities of DasNaCl/anyseq:
+global (Needleman-Wunsch), semiglobal and local (Smith-Waterman) alignment
+with linear and affine gap scoring, in score-only, full-matrix-traceback
+and linear-memory (Hirschberg / Myers-Miller) modes; a wavefront sweep
+kernel for NVIDIA Hopper GPUs, a many-pair batched mode, and multi-device
 subject-sharded wavefronts over a JAX device mesh.
 """
 import os as _os
 
-# Compiles in this environment can be slow and high-variance; a persistent
-# compilation cache amortizes them across processes. Opt out by setting
-# ANYSEQ_TPU_NO_COMPILE_CACHE=1 or your own JAX_COMPILATION_CACHE_DIR.
-if not _os.environ.get("ANYSEQ_TPU_NO_COMPILE_CACHE"):
-    _os.environ.setdefault(
-        "JAX_COMPILATION_CACHE_DIR",
-        _os.path.expanduser("~/.cache/anyseq_tpu/jax"),
-    )
-    # The env var is read at jax config init; environments that
-    # pre-import jax (sitecustomize hooks) miss it -- set the live
-    # config too, and let CPU executables persist (the default caches
-    # only accelerator backends, but the interpret-mode Pallas test
-    # kernels are the slowest compiles in this project).
-    import jax as _jax
+import jax as _jax
 
-    if _jax.config.jax_compilation_cache_dir is None:
-        _jax.config.update("jax_compilation_cache_dir",
-                           _os.environ["JAX_COMPILATION_CACHE_DIR"])
-    _jax.config.update("jax_persistent_cache_enable_xla_caches",
-                       "all")
+# Persistent compilation cache: JAX_COMPILATION_CACHE_DIR when it is set
+# (JAX reads it itself), else a fixed directory inside the checkout, so a
+# second process finds what the first compiled.
+CACHE_DIR = _os.environ.get("JAX_COMPILATION_CACHE_DIR") or _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache",
+)
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
 
 from anyseq_tpu.core.types import (
     Alignment,

@@ -69,26 +69,10 @@ def benchmark_alignments(query: bytes, subject: bytes, scoring, out,
             print_alignment(aln, file=out)
 
 
-def _honor_platform_env():
-    """Re-apply JAX_PLATFORMS even if jax was pre-imported by a
-    sitecustomize hook (otherwise the env var is silently ignored)."""
-    import os
-
-    want = os.environ.get("JAX_PLATFORMS")
-    if want:
-        try:
-            import jax
-
-            jax.config.update("jax_platforms", want)
-        except Exception:
-            pass
-
-
 def main(argv=None) -> int:
-    _honor_platform_env()
     parser = argparse.ArgumentParser(
         prog="align",
-        description="TPU-native pairwise sequence alignment (anyseq_tpu)",
+        description="pairwise sequence alignment (anyseq_tpu)",
     )
     group = parser.add_mutually_exclusive_group(required=True)
     group.add_argument(

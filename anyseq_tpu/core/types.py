@@ -1,7 +1,7 @@
 """Core scalar types, predecessor codes and scheme descriptions.
 
 Semantics pinned against the reference (cited for parity checking, the code
-is a fresh TPU-first design):
+is a fresh design):
 
 - Score is int32 on device (reference: ``Score = MatrixElem`` = i32,
   /root/reference/src/dynprog.impala:10); the public API widens to Python int.
@@ -26,6 +26,12 @@ Score = jnp.int32
 NP_SCORE = np.int32
 
 SCORE_MIN = -2147483647  # reference SCORE_MIN_VALUE (align.impala:16)
+
+# Symbols that pad query and subject arrays to their bucket sizes. They
+# differ, so a padded row never matches a padded column; padded cells lie
+# outside (0..m, 0..n) and no engine output reads them.
+PAD_Q = 254
+PAD_S = 255
 
 PRED_NONE = 0
 PRED_GAP_Q = 1

@@ -21,7 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-from anyseq_tpu.core.types import LinearScoring, Mode
+from anyseq_tpu.core.types import PAD_Q, PAD_S, LinearScoring, Mode
 from anyseq_tpu.engine import batch as _batch
 
 
@@ -55,10 +55,10 @@ def _pad_batch(q, s, ms, ns, K):
         return q, s, ms, ns, B
     pad = Bp - B
     q = jnp.concatenate(
-        [q, jnp.full((pad, q.shape[1]), _batch._PAD_Q, q.dtype)]
+        [q, jnp.full((pad, q.shape[1]), PAD_Q, q.dtype)]
     )
     s = jnp.concatenate(
-        [s, jnp.full((pad, s.shape[1]), _batch._PAD_S, s.dtype)]
+        [s, jnp.full((pad, s.shape[1]), PAD_S, s.dtype)]
     )
     ms = jnp.concatenate([ms, jnp.ones((pad,), ms.dtype)])
     ns = jnp.concatenate([ns, jnp.ones((pad,), ns.dtype)])
@@ -214,16 +214,7 @@ def align_scores_batch_sharded(queries, subjects, mode="global",
     for (M, N), idxs in buckets.items():
         for lo in range(0, len(idxs), batch_size):
             chunk = idxs[lo: lo + batch_size]
-            B = len(chunk)
-            qarr = np.full((B, M), _batch._PAD_Q, np.int32)
-            sarr = np.full((B, N), _batch._PAD_S, np.int32)
-            ms = np.empty(B, np.int32)
-            ns = np.empty(B, np.int32)
-            for r, i in enumerate(chunk):
-                qarr[r, : len(qs[i])] = qs[i]
-                sarr[r, : len(ss[i])] = ss[i]
-                ms[r] = len(qs[i])
-                ns[r] = len(ss[i])
+            qarr, sarr, ms, ns = _batch._stage(chunk, qs, ss, M, N)
             q_, s_, ms_, ns_, B0 = _pad_batch(
                 jnp.asarray(qarr), jnp.asarray(sarr),
                 jnp.asarray(ms), jnp.asarray(ns), K,

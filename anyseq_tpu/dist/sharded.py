@@ -2,24 +2,18 @@
 
 The DP matrix's subject axis is split into K contiguous stripes, one per
 device on the "sp" mesh axis. Bands of H query rows flow through the chips
-as a software pipeline: at super-step u, chip k relaxes band (u - k) of its
-stripe and then sends its right-edge boundary column (H values + the
-corner) to chip k+1 with ``jax.lax.ppermute`` -- the ICI analog of the
-reference's corner/row/column boundary vectors between blocks
-(scoring_cpu.impala:11-33). All chips work concurrently on successive
-bands after a K-step fill, exactly like the reference's intra-device block
-wavefront (iteration_cpu.impala:23-27) lifted across chips.
+as a software pipeline: at super-step u, device k relaxes band (u - k) of
+its stripe and then sends its right-edge boundary column (H values + the
+corner) to device k+1 with ``jax.lax.ppermute``, which XLA hands to the
+collective library (NCCL over NVLink on GPUs) -- the distributed analog of
+the reference's corner/row/column boundary vectors between blocks
+(scoring_cpu.impala:11-33). All devices work concurrently on successive
+bands after a K-step fill, like the reference's intra-device block
+wavefront (iteration_cpu.impala:23-27) lifted across devices.
 
 Pipeline efficiency: (B bands) / (B + K - 1 super-steps); choose H so that
-B >> K.
-
-The per-band, per-stripe relaxation runs through the Pallas boundary-mode
-wavefront kernel on TPU (``engine="pallas"``; the same staggered-window
-inner loop as the single-chip path, kernels/band.py) and falls back to the
-portable row-scan + max-plus prefix-scan formulation elsewhere -- the
-communication structure (ppermute of H+1 boundary values per superstep) is
-identical for both. This mirrors the reference using the SAME fast inner
-loop for every execution shape (iteration_acc.impala:30-83 vs :87-172).
+B >> K. Each band of a stripe is relaxed by the XLA row-scan with
+max-plus prefix scans (engine/xla_linmem.py, engine/xla_affine.py).
 """
 from __future__ import annotations
 
@@ -31,76 +25,20 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from anyseq_tpu.core.types import (
+    PAD_Q,
+    PAD_S,
     SCORE_MIN,
     AffineScoring,
     LinearScoring,
     Mode,
     Score,
 )
-from anyseq_tpu.engine import xla_linmem
+from anyseq_tpu.engine import route, xla_linmem
 from anyseq_tpu.engine.xla_affine import NEG, _shift1
 
 
 def _round_up(x, m):
     return (x + m - 1) // m * m
-
-
-def _band_compute_kernel(q_band, s_loc, row_in, col_in, j0, i0, h_local,
-                         n, mode, sc, G, interpret, rowf_in=None,
-                         cole_in=None):
-    """Same contract as :func:`_band_compute`, computed by the Pallas
-    boundary-mode wavefront kernel (kernels/band.py) instead of the XLA
-    row-scan. Requires H % 128 == 0 and Nl % (G*1024) == 0.
-
-    Affine (``sc`` AffineScoring): additionally takes the F boundary row
-    ``rowf_in`` (Nl,) and the E boundary column ``cole_in`` (H,), and
-    returns (row_out, rowf_out, col_out, cole_out, ecol, ecol_e, best).
-    """
-    from anyseq_tpu.kernels import band
-
-    affine = isinstance(sc, AffineScoring)
-    H = q_band.shape[0]
-    Nl = s_loc.shape[0]
-    num_windows = Nl // band.W
-    corner = col_in[0]
-
-    corners = band._band_corners(row_in, corner, num_windows)
-    # Kernel-local n: count of valid columns in this stripe (global j < n
-    # <=> local j < n - j0). Drives the edge-window ecol selection and the
-    # local-mode valid mask.
-    n_loc = jnp.clip(n - j0, 0, Nl)
-
-    kw = {}
-    if affine:
-        kw["rowf2"] = rowf_in.reshape(-1, band.LANES)
-        kw["cole2"] = cole_in.reshape(-1, band.LANES)
-    outs = band._score_band_padded(
-        q_band.reshape(-1, band.LANES),
-        s_loc.reshape(-1, band.LANES),
-        row_in.reshape(-1, band.LANES),
-        col_in[1:].reshape(-1, band.LANES),
-        corners, h_local, n_loc, mode, sc,
-        emit_col=True, interpret=interpret, G=G, **kw,
-    )
-    row_out = outs["last_row"][:Nl]
-    col_out = jnp.concatenate(
-        [jnp.reshape(row_in[Nl - 1], (1,)), outs["col_out"][:H]]
-    )
-    ecol = outs["last_col"][:H]
-    best = outs["best"]
-    if mode is Mode.LOCAL:
-        # kernel best i is band-local; j is stripe-local.
-        valid = best[0] > SCORE_MIN
-        best = jnp.where(
-            valid,
-            jnp.stack([best[0], best[1] + i0, best[2] + j0]),
-            jnp.array([SCORE_MIN, -1, -1], Score),
-        )
-    if affine:
-        return (row_out, outs["last_row_f"][:Nl], col_out,
-                outs["col_out_e"][:H], ecol, outs["last_col_e"][:H],
-                best)
-    return row_out, col_out, ecol, best
 
 
 def _band_compute(q_band, s_loc, row_in, col_in, j0, i0, h_local, n,
@@ -234,13 +172,11 @@ def _band_compute_affine(q_band, s_loc, row_in, rowf_in, col_in, cole_in,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("mode", "sc", "H", "mesh", "axis", "use_kernel",
-                     "G", "interpret", "start_gap"),
+    static_argnames=("mode", "sc", "H", "mesh", "axis", "start_gap"),
 )
 def _sharded_score(q, s_sh, row0_sh, rowf0_sh, m, n, mode: Mode, sc,
                    H: int, mesh: Mesh, axis: str = "sp",
-                   use_kernel: bool = False, G: int = 1,
-                   interpret: bool = False, start_gap: bool = False):
+                   start_gap: bool = False):
     """q: (M_pad,) replicated; s_sh/row0_sh (affine: + rowf0_sh): (N_pad,)
     sharded over axis. The superstep ppermute message carries the H
     boundary column (+ corner); affine scoring appends the E boundary
@@ -295,23 +231,11 @@ def _sharded_score(q, s_sh, row0_sh, rowf0_sh, m, n, mode: Mode, sc,
             else:
                 col_bnd = jnp.where(k == 0, col_form, col_in)
 
-            if affine and use_kernel:
-                (row2, rowf2, col_out, cole_out, ecol, ecole,
-                 bbest) = _band_compute_kernel(
-                    q_band, s_loc, row_loc, col_bnd, j0, i0, h_local, n,
-                    mode, sc, G, interpret, rowf_in=rowf_loc,
-                    cole_in=cole_bnd,
-                )
-            elif affine:
+            if affine:
                 (row2, rowf2, col_out, cole_out, ecol, ecole,
                  bbest) = _band_compute_affine(
                     q_band, s_loc, row_loc, rowf_loc, col_bnd, cole_bnd,
                     j0, i0, h_local, n, mode, sc,
-                )
-            elif use_kernel:
-                row2, col_out, ecol, bbest = _band_compute_kernel(
-                    q_band, s_loc, row_loc, col_bnd, j0, i0, h_local, n,
-                    mode, sc, G, interpret,
                 )
             else:
                 row2, col_out, ecol, bbest = _band_compute(
@@ -399,15 +323,8 @@ def score_pair_sharded(query, subject, mode, sc, mesh: Mesh,
     messages; ``start_gap`` is the Myers-Miller continuing-run init for
     distributed affine construction).
 
-    engine: "collective" (ONE persistent kernel per chip per band with
-    in-kernel ICI halo exchange, dist/collective.py -- the TPU default
-    for linear scoring on a 1-D mesh), "collective-interpret" (same
-    under the TPU interpreter -- CPU testing), "pallas" (host-
-    orchestrated superstep: boundary-mode wavefront kernel per
-    stripe-band, boundary columns via ppermute), "pallas-interpret",
-    "xla" (portable row-scan supersteps), or "auto" (collective on
-    accelerators where supported, else pallas on accelerators, else
-    xla).
+    engine: "auto" or "xla"; every band of every stripe is relaxed by
+    the XLA row-scan.
 
     Returns the same outputs dict as xla_linmem.score_rows; combine with
     xla_linmem.extract_score_from_outputs.
@@ -420,67 +337,19 @@ def score_pair_sharded(query, subject, mode, sc, mesh: Mesh,
     m, n = len(q8), len(s8)
     if m == 0 or n == 0:
         raise ValueError("empty sequences are not supported")
-    if engine in ("auto", "collective", "collective-interpret"):
-        from anyseq_tpu.dist import collective as _coll
-        from anyseq_tpu.kernels import band as _band
-
-        run_mesh = mesh
-        if not _coll.supports(mesh, axis, sc) and len(mesh.axis_names) > 1:
-            # A single pair has nothing for the other axes to do:
-            # flatten the whole mesh into one sp ring (every device
-            # becomes a stripe of this pair). Batches of pairs keep
-            # their 2-D (dp x sp) shape via score_pairs_collective.
-            run_mesh = Mesh(
-                np.asarray(mesh.devices).reshape(-1), (axis,)
-            )
-        if _coll.supports(run_mesh, axis, sc) and (
-            engine in ("collective", "collective-interpret")
-            or _band.available()
-        ):
-            return _coll.score_pair_collective(
-                q8, s8, mode, sc, run_mesh, axis=axis,
-                interpret="tpu" if engine == "collective-interpret"
-                else False, start_gap=start_gap,
-            )
-        if engine != "auto":
-            raise ValueError(
-                "collective engine requires a mesh containing axis "
-                f"{axis!r}"
-            )
-    if engine == "auto":
-        from anyseq_tpu.kernels import band as _band
-
-        engine = "pallas" if _band.available() else "xla"
+    route.check(engine)
     affine = isinstance(sc, AffineScoring)
     if start_gap and not (affine and mode is Mode.GLOBAL):
         raise ValueError("start_gap is an affine GLOBAL (Myers-Miller) "
                          "subproblem flag")
-    use_kernel = engine in ("pallas", "pallas-interpret")
-    interpret = engine == "pallas-interpret"
     K = mesh.shape[axis]
-    G = 1
-    if use_kernel:
-        from anyseq_tpu.kernels import band as _band
-
-        if H % 128 != 0:
-            raise ValueError("kernel engine needs H % 128 == 0")
-        # Pick the cost-effective chain count FIRST, then align the
-        # stripe width to whole window groups (padding cost <= G-1
-        # windows per stripe; a bad G costs far more than the padding).
-        G = _band._pick_g(H, _round_up(max(n, 1), _band.W * K) // K,
-                          emit_col=True, affine=affine)
-        Nl = _round_up(max(n, 1), _band.W * G * K) // K
-    else:
-        Nl = _round_up(max(n, 1), 128 * K) // K
+    Nl = _round_up(max(n, 1), 128 * K) // K
     N_pad = Nl * K
-
-    from anyseq_tpu.kernels import band as _bandmod
-
     M_pad = _round_up(m, H)
 
-    q = jnp.full((M_pad,), _bandmod.PAD_Q,
+    q = jnp.full((M_pad,), PAD_Q,
                  jnp.int32).at[:m].set(q8.astype(np.int32))
-    s = jnp.full((N_pad,), _bandmod.PAD_S,
+    s = jnp.full((N_pad,), PAD_S,
                  jnp.int32).at[:n].set(s8.astype(np.int32))
     jarr = jnp.arange(N_pad, dtype=Score)
     if mode is Mode.GLOBAL and affine:
@@ -498,5 +367,4 @@ def score_pair_sharded(query, subject, mode, sc, mesh: Mesh,
     rowf0 = jax.device_put(rowf0, shard)
 
     return _sharded_score(q, s, row0, rowf0, jnp.int32(m), jnp.int32(n),
-                          mode, sc, H, mesh, axis, use_kernel=use_kernel,
-                          G=G, interpret=interpret, start_gap=start_gap)
+                          mode, sc, H, mesh, axis, start_gap=start_gap)

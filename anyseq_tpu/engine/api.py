@@ -13,6 +13,8 @@ import jax.numpy as jnp
 
 from anyseq_tpu.core.types import (
     EMPTY_SYM,
+    PAD_Q,
+    PAD_S,
     PRED_GAP_Q,
     PRED_GAP_S,
     AffineScoring,
@@ -21,12 +23,7 @@ from anyseq_tpu.core.types import (
     Mode,
     as_u8,
 )
-from anyseq_tpu.engine import xla_linmem
-from anyseq_tpu.ref import oracle
-
-# Sentinels used to pad sequences; distinct so padding never matches.
-_PAD_Q = 254
-_PAD_S = 255
+from anyseq_tpu.engine import route, xla_linmem
 
 _BUCKET = 256
 
@@ -47,18 +44,19 @@ def _prep(query, subject):
     m, n = len(q), len(s)
     if m == 0 or n == 0:
         raise ValueError("empty sequences are not supported")
-    qp = _pad_i32(q, _bucket(m), _PAD_Q)
-    sp = _pad_i32(s, _bucket(n), _PAD_S)
+    qp = _pad_i32(q, _bucket(m), PAD_Q)
+    sp = _pad_i32(s, _bucket(n), PAD_S)
     return q, s, m, n, qp, sp
 
 
-def _run_score(qp, sp, m, n, mode, scoring, engine, need_pos=True):
-    if engine in ("auto", "pallas"):
-        from anyseq_tpu.kernels import band as band_kernel
+def _run_score(qp, sp, m, n, mode, scoring, engine):
+    """Score-pass outputs (xla_linmem.score_rows contract) from the engine
+    the router picks."""
+    mode = Mode.parse(mode)
+    if route.use_kernel("score", engine, qp.shape[0]):
+        from anyseq_tpu.kernels import sweep
 
-        if band_kernel.available() or engine == "pallas":
-            return band_kernel.score_pair(qp, sp, m, n, mode, scoring,
-                                          need_pos=need_pos)
+        return sweep.score_rows(qp, sp, m, n, mode, scoring)
     if isinstance(scoring, AffineScoring):
         from anyseq_tpu.engine import xla_affine
 
@@ -71,11 +69,7 @@ def align_score(query, subject, mode="global", scoring=LinearScoring(),
     """Score-only alignment (reference: *_alignment_score, export.impala)."""
     mode = Mode.parse(mode)
     _, _, m, n, qp, sp = _prep(query, subject)
-    # Score-only: the reference's score() returns the score alone
-    # (align.impala:218-235), so the LOCAL kernel may drop its per-step
-    # improvement-position tracking (need_pos=False).
-    outs = _run_score(qp, sp, m, n, mode, scoring, engine,
-                      need_pos=False)
+    outs = _run_score(qp, sp, m, n, mode, scoring, engine)
     score, _ = xla_linmem.extract_score_from_outputs(outs, m, n, mode, scoring)
     return score
 
@@ -103,24 +97,10 @@ def align_full_tb(query, subject, mode="global", scoring=LinearScoring(),
     SURVEY.md quirk Q1).
     """
     mode = Mode.parse(mode)
+    route.check(engine)  # one engine: the XLA predecessor sweep
     q, s, m, n, qp, sp = _prep(query, subject)
     if isinstance(scoring, AffineScoring):
-        if engine in ("auto", "pallas"):
-            from anyseq_tpu.kernels import band
-
-            if (band.available() or engine == "pallas") and band.supports(m):
-                # Kernel path, ONE dispatch: packed 4-bit affine pred
-                # emission (PH + PE/PF extend bits), on-device
-                # extraction, on-device 3-state walk -- only the
-                # O(m+n) strings leave the device.
-                from anyseq_tpu.engine import device_tb
-
-                score, end, out_q, out_s, start = device_tb.fulltb_fused(
-                    qp, sp, m, n, mode, scoring
-                )
-                return Alignment(score, bytes(out_q), bytes(out_s), start)
         from anyseq_tpu.engine import xla_affine
-        from anyseq_tpu.ref import oracle_affine
 
         outs = xla_affine.score_rows_affine_with_preds(
             qp, sp, m, n, mode, scoring
@@ -137,21 +117,6 @@ def align_full_tb(query, subject, mode="global", scoring=LinearScoring(),
         out_s = np.full(m + n, EMPTY_SYM, dtype=np.uint8)
         start = tb.walk_affine(q, s, PH, PE, PF, end, out_q, out_s)
         return Alignment(score, bytes(out_q), bytes(out_s), start)
-    if engine in ("auto", "pallas"):
-        from anyseq_tpu.kernels import band
-
-        if (band.available() or engine == "pallas") and band.supports(m):
-            # Kernel path, ONE dispatch: packed 2-bit pred emission at
-            # wavefront speed, on-device extraction, on-device walk --
-            # only the O(m+n) strings leave the device (the O(m*n)
-            # pred matrix never does, and no intermediate fetch
-            # round-trips remain).
-            from anyseq_tpu.engine import device_tb
-
-            score, end, out_q, out_s, start = device_tb.fulltb_fused(
-                qp, sp, m, n, mode, scoring
-            )
-            return Alignment(score, bytes(out_q), bytes(out_s), start)
     outs = xla_linmem.score_rows_with_preds(qp, sp, m, n, mode, scoring)
     score, end = xla_linmem.extract_score_from_outputs(outs, m, n, mode, scoring)
     P = _haloed_preds(np.asarray(outs["preds"]), m, n, mode)
@@ -194,6 +159,7 @@ def align(query, subject, mode="global", scoring=LinearScoring(),
     bit-identical to the single-device result).
     """
     mode = Mode.parse(mode)
+    route.check(engine)
     if mesh is not None:
         from anyseq_tpu.engine import hirschberg
 

@@ -1,6 +1,6 @@
-"""Portable linear-memory scoring engine in pure XLA (no Pallas).
+"""Portable linear-memory scoring engine in pure XLA.
 
-TPU-first reformulation of the DP recurrence: instead of the reference's
+Row-vector reformulation of the DP recurrence: instead of the reference's
 cell-antidiagonal wavefront (src/iteration_cpu.impala:15-57), each DP row is
 computed as one vector operation using the max-plus prefix-scan identity.
 
@@ -15,13 +15,13 @@ has the closed form
 where ``col_i`` is the boundary H[i][-1]. The clamp-at-zero of local
 alignment folds into C (proof: C >= 0 and g <= 0 imply the scanned value
 equals the clamped recurrence). This turns the sequential j-loop into a
-``lax.cummax`` the TPU VPU executes in log steps -- no scalar loops, fully
+``lax.cummax`` that runs as a parallel scan -- no scalar loops, fully
 fused by XLA. Scores are int32, bit-identical to the reference recurrence
 (align.impala:46-79) because max-plus is exact in integer arithmetic.
 
-This engine is the correctness workhorse (runs on CPU/TPU unchanged) and the
-fallback where the Pallas kernels don't apply. The Pallas wavefront kernel
-(anyseq_tpu/kernels/band.py) is the performance path.
+This engine runs on every platform and is the reference the GPU sweep
+kernel (kernels/sweep.cu) is checked against; engine/route.py picks
+between them.
 """
 from __future__ import annotations
 

@@ -11,7 +11,7 @@
  * *_fulltb variants use the correct schemes (the reference's mistakenly
  * use the global scheme, SURVEY.md Q1).
  *
- * This is the native CPU surface; the TPU path is the Python API
+ * This is the native CPU surface; the accelerator path is the Python API
  * (import anyseq_tpu). Link against libanyseq_native.so.
  */
 #ifndef ANYSEQ_TPU_NATIVE_H_

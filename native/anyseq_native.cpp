@@ -1,8 +1,8 @@
 // Native runtime components for anyseq_tpu.
 //
-// TPU-native re-design of the reference's C++ host layer
+// Re-design of the reference's C++ host layer
 // (src/sequence_io.cpp, src/traceback.impala:47-80): the compute path is
-// JAX/Pallas; the host-side sequential pieces -- record parsing and the
+// JAX (and a CUDA sweep kernel on the GPU); the host-side sequential pieces -- record parsing and the
 // inherently serial traceback walks -- are native for speed. Exposed as a
 // C ABI consumed via ctypes (anyseq_tpu/io/_native.py).
 //
@@ -145,7 +145,7 @@ void traceback_affine(const unsigned char* PH, const unsigned char* PE,
 // variants (export.impala:38,94,151) -- here with the CORRECT schemes
 // (the reference's semiglobal/local fulltb use global_scheme by
 // mistake; SURVEY.md quirk Q1). This is the native CPU surface for C
-// callers; the TPU path is the Python/JAX API. score_t is int64
+// callers; the accelerator path is the Python/JAX API. score_t is int64
 // (datatypes.h:15). Deviation (SURVEY.md quirk Q6): construct_* return
 // the true DP score (the reference's non-global construct scores read
 // an unwritten matrix and are unreliable).

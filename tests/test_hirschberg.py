@@ -151,50 +151,3 @@ def test_hb_semiglobal_single_cell_shapes():
             exp = oracle.align_score(q, s, mode, sc)
             aln = align_hirschberg(q, s, mode, sc, min_width=2)
             assert aln.score == exp, (q, s, mode)
-
-
-@pytest.mark.parametrize("mode", [Mode.SEMIGLOBAL, Mode.LOCAL])
-def test_endpoint_reduction_fused(mode, rng):
-    """_endpoint_reduction_fused (both endpoint passes in one dispatch,
-    on-device extraction + reversed-prefix build) is bit-exact vs the
-    two-pass host logic, including boundary-candidate tie order."""
-    from anyseq_tpu.engine import hirschberg as hb
-
-    sc = SC
-    cases = []
-    for _ in range(4):
-        m = int(rng.integers(5, 300))
-        n = int(rng.integers(5, 400))
-        cases.append((random_dna(rng, m), random_dna(rng, n)))
-    # adversarial: all-mismatch (boundary maxima win) and identity
-    cases.append((b"A" * 60, b"C" * 70))
-    q0 = random_dna(rng, 90)
-    cases.append((q0, q0))
-    for (q, s) in cases:
-        got = hb._endpoint_reduction_fused(q, s, mode, sc, "auto",
-                                           interpret=True)
-        assert got is not None
-        score, (ei, ej) = hb._find_end(q, s, mode, sc, "xla")
-        assert got[:3] == (score, ei, ej), (mode, got)
-        if ei >= 0 and ej >= 0 and not (mode is Mode.LOCAL
-                                        and score <= 0):
-            qr = q[: ei + 1][::-1]
-            sr = s[: ej + 1][::-1]
-            if mode is Mode.LOCAL:
-                rscore, (ri, rj) = hb._find_end(qr, sr, mode, sc, "xla")
-            else:
-                outs = hb._score_outputs(qr, sr, Mode.GLOBAL, sc, "xla")
-                mr, nr = len(qr), len(sr)
-                lrow = outs["last_row"][:nr]
-                lcol = outs["last_col"][:mr]
-                rj_ = int(np.argmax(lrow))
-                rscore = int(lrow[rj_])
-                ri, rj = mr - 1, rj_
-                ci = int(np.argmax(lcol))
-                if int(lcol[ci]) > rscore:
-                    rscore, ri, rj = int(lcol[ci]), ci, nr - 1
-                if sc.gap * mr > rscore:
-                    rscore, ri, rj = sc.gap * mr, mr - 1, -1
-                if sc.gap * nr > rscore:
-                    rscore, ri, rj = sc.gap * nr, -1, nr - 1
-            assert got[3:] == (rscore, ri, rj), (mode, got)
